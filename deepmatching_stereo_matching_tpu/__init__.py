@@ -1,10 +1,11 @@
-"""TPU-native DeepMatching dense stereo-matching engine.
+"""DeepMatching dense stereo-matching engine in JAX.
 
-A from-scratch JAX/XLA/Pallas re-architecture of the capabilities of
+A from-scratch JAX/XLA re-architecture of the capabilities of
 `Yuki-Kumon/deepmatching_stereo_matching` (see SURVEY.md): patch-level
 correlation cost volumes, the DeepMatching aggregation pyramid, dense
 top-down backtracking, and disparity extraction with left-right
-consistency — jitted end-to-end on device and sharded over TPU meshes.
+consistency — jitted end-to-end on device and sharded over device
+meshes.
 """
 
 from .config import Config, Geometry

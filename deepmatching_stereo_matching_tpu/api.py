@@ -16,7 +16,6 @@ import numpy as np
 
 from .config import Config
 from .models import pipeline
-from .ops._dispatch import implementation
 from .oracle import reference as _oracle
 
 
@@ -40,16 +39,13 @@ def preprocess(image: np.ndarray, cfg: Config, height: int, width: int
 
 
 def match_stereo(left, right, cfg: Config = Config(),
-                 impl: Optional[str] = None,
                  debug_checks: bool = False) -> MatchResult:
     """Dense disparity for a rectified pair, computed on device.
 
     Accepts uint8/float, grayscale or RGB arrays of equal shape.
-    `impl` overrides the ambient implementation ('fused'|'pallas'|'jnp',
-    ops/_dispatch.py) for this call.  `debug_checks` runs the pipeline
-    with on-device checkify invariant guards (finite scores, in-range
-    disparity bins; utils/checks.py) on the jnp path — a sanitizer
-    mode, not for production throughput.
+    `debug_checks` runs the pipeline with on-device checkify invariant
+    guards (finite scores, in-range disparity bins; utils/checks.py) —
+    a sanitizer mode, not for production throughput.
     """
     from .utils import checks
 
@@ -60,8 +56,7 @@ def match_stereo(left, right, cfg: Config = Config(),
     if debug_checks:
         out = checks.checked_match_padded(lp, rp, cfg, h, w)
     else:
-        out = pipeline.match_padded(lp, rp, cfg, h, w,
-                                    impl or implementation())
+        out = pipeline.match_padded(lp, rp, cfg, h, w)
     return MatchResult(
         disparity=np.asarray(out["disparity"]),
         disparity_raw=np.asarray(out["disparity_raw"], dtype=np.int32),

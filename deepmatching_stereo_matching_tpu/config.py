@@ -57,21 +57,10 @@ class Config:
         float disparity map.
       dtype: compute dtype of the cost volume / pyramid ('float32' or
         'bfloat16'; f32 is the bit-comparability default, SURVEY.md §7
-        hard part 5).  NOTE: on the flagship fused path bf16 is both
-        SLOWER than f32 (the kernel is VMEM-resident and VPU-bound, so
-        bf16 halves no binding resource while adding casts — measured
-        in bench.py's bf16 row) and less accurate; its value is
-        HBM-bound paths only (two-kernel, large-D volumes).
+        hard part 5).  bf16 halves the bytes of the volume and the
+        pyramid but is not bit-comparable to the oracle; its speed on
+        the GPU has not been measured.
       min_top_disparities: used by automatic level selection.
-      fused_dot_precision: MXU precision scheme of the fused kernel's
-        selection/compaction matmuls (ops/fused_pallas.py).  'split2'
-        (default) runs each matmul as 2 native-speed bf16 passes over a
-        hi+residual split (~2^-16 relative accuracy; measured ~1e-5
-        disparity-decision disagreement vs exact on near-ties, inside
-        bench.py's 0.5% parity gate and ~10% faster end-to-end);
-        'split3' adds a third residual pass (~2^-24); 'highest' restores
-        Mosaic's exact 6-pass f32 matmuls.  Only the fused impl is
-        affected — the two-kernel 'pallas' path is always exact.
       median_filter: odd window size of the post-filter median over the
         final disparity map (C13, SURVEY.md §2.1; 0 disables).  Invalid
         pixels are excluded from each window; the lower median is taken,
@@ -95,7 +84,6 @@ class Config:
     min_score: float = 0.0
     invalid_value: float = float("nan")
     dtype: str = "float32"
-    fused_dot_precision: str = "split2"
     min_top_disparities: int = 4
     median_filter: int = 0
     fill_invalid: bool = False
@@ -113,9 +101,6 @@ class Config:
             raise ValueError(f"unknown descriptor mode: {self.descriptor!r}")
         if self.lr_mode not in ("flip", "direct"):
             raise ValueError(f"unknown lr_mode: {self.lr_mode!r}")
-        if self.fused_dot_precision not in ("split2", "split3", "highest"):
-            raise ValueError(
-                f"unknown fused_dot_precision: {self.fused_dot_precision!r}")
         if self.levels is not None and self.levels < 1:
             raise ValueError("levels must be >= 1")
         if self.median_filter and (self.median_filter < 0
@@ -144,25 +129,21 @@ class Config:
     def padded_image_size(self, height: int, width: int, levels: int) -> tuple:
         """(Hp, Wp): image size padded so the level-0 grid divides 2**L.
 
-        Width is additionally padded to a LANE-ALIGNED patch grid
-        (W0 = Wp/p a multiple of 128, the TPU vector register lane
-        count) when that costs <= 25% extra columns: ragged lane tiles
-        tax every Mosaic vector op on (., W0) planes — measured 2.5x
-        on the KITTI large-D cost kernel (W0 320 -> 384 made the
-        kernel faster despite 20% more pixels; PROFILE_LARGE r5).
-        Padding columns are zeros, which score exactly 0 (the oracle's
-        out-of-range rule), so results on the true image region are
-        unchanged; the NumPy oracle pads identically, keeping parity
-        bitwise by construction.
+        Each side is rounded up to a multiple of ``patch_size * 2**L``,
+        the quadtree's block size.  The NumPy oracle pads through this
+        same method, so device/oracle parity holds by construction.
+
+        Padding is zeros.  Extra zero padding in whole blocks leaves the
+        cropped result unchanged as long as the image already has at
+        least one padding column: zero descriptors score exactly 0, the
+        out-of-range rule.  It is NOT invariant for 'grad_hist' when the
+        width needs no padding at all, because np.gradient takes a
+        one-sided difference at the last image column there and a
+        central difference against the first zero column otherwise.
         """
         m = self.patch_size * (self.subsample ** levels)
         hp = ((height + m - 1) // m) * m
         wp = ((width + m - 1) // m) * m
-        lane_m = self.patch_size * 128
-        lane_m = (lane_m * m) // math.gcd(lane_m, m)
-        wa = ((wp + lane_m - 1) // lane_m) * lane_m
-        if wa <= wp * 5 // 4:
-            wp = wa
         return hp, wp
 
     def geometry(self, height: int, width: int) -> "Geometry":

@@ -78,7 +78,7 @@ def make_block_pair(height: int = 128, width: int = 192,
 
 
 # ---------------------------------------------------------------------------
-# Adversarial scenes (VERDICT r3 item 7): the regimes LR-checking and
+# Adversarial scenes: the regimes LR-checking and
 # post-filtering exist for — occlusions, textureless surfaces, and
 # photometric asymmetry between the two eyes.  Block pairs are
 # "friendly" (every patch has a unique, exact match); these are not.

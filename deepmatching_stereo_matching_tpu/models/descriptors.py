@@ -4,8 +4,7 @@ jnp implementations matching the NumPy oracle
 (`oracle/reference.py:left_descriptors` / `right_sliding_descriptors`)
 element-for-element in float32: raw-intensity 'patch' mode and the
 dense-SIFT-like 'grad_hist' mode [DM §3.1].  These run inside the jitted
-pipeline; on TPU the descriptor construction is pure VPU work that XLA
-fuses with the correlation prologue.
+pipeline, where XLA fuses them with the correlation prologue.
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ import jax
 import jax.numpy as jnp
 
 from ..config import Config
+from ..ops.ordered import ordered_sum
 
 _EPS = 1e-8
 
@@ -25,13 +25,8 @@ _EPS = 1e-8
 def _gradient_1d(img: jnp.ndarray, axis: int) -> jnp.ndarray:
     """np.gradient semantics: central differences, one-sided at edges.
 
-    Static slices, NOT jnp.take with index vectors: take lowers to a
-    real gather on TPU, which dominated the grad_hist feature prep
-    (measured r5: the magbin kernel's XLA prologue was ~3.8 of 6.1 ms
-    at the bench geometry before this change).  Same elements,
-    bitwise identical to np.gradient.  (A clamped-shift + iota-mask
-    variant with no 1-wide arithmetic measured SLOWER on chip — 912 vs
-    1157 Mpx/s full-step — so the three-piece form stands.)
+    Static slices rather than an index gather; same elements, bitwise
+    identical to np.gradient.
     """
     n = img.shape[axis]
     sl = functools.partial(jax.lax.slice_in_dim, img, axis=axis)
@@ -41,38 +36,26 @@ def _gradient_1d(img: jnp.ndarray, axis: int) -> jnp.ndarray:
     return jnp.concatenate([first, interior, last], axis=axis)
 
 
-def magbin_from_gradients(gx: jnp.ndarray, gy: jnp.ndarray) -> tuple:
-    """(gx, gy) -> (L1 magnitude, int32 octant index), elementwise.
+def hist_from_gradients(gx: jnp.ndarray, gy: jnp.ndarray,
+                        bins: int = 8) -> jnp.ndarray:
+    """(gx, gy) -> magnitude-weighted orientation histogram (..., bins).
 
-    THE single definition of the comparison-based octant binning + L1
-    magnitude (EXACT float ops only, matching
+    The shared tail of `grad_hist_pixels` and the halo-corrected sharded
+    feature builder (parallel/wtiled.py).  Comparison-based octant
+    binning + L1 magnitude, EXACT float ops only, matching
     oracle/reference.py:_grad_hist_pixels — sqrt/arctan2 compile to
     fusion-dependent FMA/veclib code whose ULP drift flips bins; see
-    the oracle docstring).  Both the one-hot tensor form
-    (`hist_from_gradients`) and the fused kernel's magbin plane form
-    derive from this helper so the binning rule cannot desynchronize.
+    the oracle docstring.
     """
+    if bins != 8:
+        raise ValueError("grad_hist is defined for 8 orientation bins")
     ax, ay = jnp.abs(gx), jnp.abs(gy)
     mag = ax + ay
     idx_up = jnp.where(gx > 0, jnp.where(ay >= ax, 5, 4),
                        jnp.where(ay > ax, 6, 7))
     idx_dn = jnp.where(gx >= 0, jnp.where(ay > ax, 2, 3),
                        jnp.where(ay >= ax, 1, 0))
-    idx = jnp.where(gy >= 0, idx_up, idx_dn).astype(jnp.int32)
-    return mag, idx
-
-
-def hist_from_gradients(gx: jnp.ndarray, gy: jnp.ndarray,
-                        bins: int = 8) -> jnp.ndarray:
-    """(gx, gy) -> magnitude-weighted orientation histogram (..., bins).
-
-    The shared tail of `grad_hist_pixels` and the halo-corrected sharded
-    feature builder (parallel/wtiled.py); one-hot encoding of
-    `magbin_from_gradients`.
-    """
-    if bins != 8:
-        raise ValueError("grad_hist is defined for 8 orientation bins")
-    mag, idx = magbin_from_gradients(gx, gy)
+    idx = jnp.where(gy >= 0, idx_up, idx_dn)
     return jax.nn.one_hot(idx, bins, dtype=jnp.float32) * mag[..., None]
 
 
@@ -87,24 +70,6 @@ def grad_hist_pixels(img: jnp.ndarray, bins: int = 8) -> jnp.ndarray:
     return hist_from_gradients(gx, gy, bins)
 
 
-def grad_hist_magbin(img: jnp.ndarray) -> tuple:
-    """Per-pixel (magnitude, bin) planes, (H, W) -> 2x (H, W) f32.
-
-    The grad_hist features are one-hot x magnitude (exactly one of the
-    8 bins is nonzero per pixel, `hist_from_gradients`), so the dense
-    (H, W, 8) tensor factors losslessly into an L1-magnitude plane and
-    an orientation-index plane: the descriptor dot becomes
-    mag_L*mag_R*[bin_L == bin_R] — exactly the matching one-hot product
-    plus exact zeros.  The bin index is returned as f32 (values 0..7,
-    exact in f32 AND bf16, so the fused kernel's split-bf16 selection
-    matmuls phase it exactly).  Consumed by the fused kernel's magbin
-    mode (ops/fused_pallas.py)."""
-    gy = _gradient_1d(img, 0)
-    gx = _gradient_1d(img, 1)
-    mag, idx = magbin_from_gradients(gx, gy)
-    return mag.astype(jnp.float32), idx.astype(jnp.float32)
-
-
 def pixel_features(img: jnp.ndarray, cfg: Config) -> jnp.ndarray:
     if cfg.descriptor == "patch":
         return img[..., None]
@@ -112,8 +77,13 @@ def pixel_features(img: jnp.ndarray, cfg: Config) -> jnp.ndarray:
 
 
 def _normalize(desc: jnp.ndarray) -> jnp.ndarray:
-    norm = jnp.sqrt(jnp.sum(desc * desc, axis=-1, keepdims=True))
+    norm = jnp.sqrt(ordered_sum(desc * desc))[..., None]
     return desc / jnp.maximum(norm, jnp.float32(_EPS))
+
+
+def _center(desc: jnp.ndarray) -> jnp.ndarray:
+    mean = ordered_sum(desc)[..., None] / jnp.float32(desc.shape[-1])
+    return desc - mean
 
 
 def patch_descriptors(feat: jnp.ndarray, cfg: Config) -> jnp.ndarray:
@@ -129,7 +99,7 @@ def patch_descriptors(feat: jnp.ndarray, cfg: Config) -> jnp.ndarray:
     blocks = feat[: h0 * p, : w0 * p].reshape(h0, p, w0, p, f)
     desc = blocks.transpose(0, 2, 1, 3, 4).reshape(h0, w0, p * p * f)
     if cfg.center_descriptors:
-        desc = desc - desc.mean(axis=-1, keepdims=True)
+        desc = _center(desc)
     return _normalize(desc)
 
 
@@ -167,7 +137,7 @@ def sliding_descriptors(feat: jnp.ndarray, cfg: Config,
     ok = (xg >= 0) & (xg <= width_global - p)
     desc = jnp.where(ok[None, :, None], desc, jnp.float32(0.0))
     if cfg.center_descriptors:
-        desc = desc - desc.mean(axis=-1, keepdims=True)
+        desc = _center(desc)
     return _normalize(desc)
 
 

@@ -5,7 +5,7 @@ The reference runs its stages as separate NumPy passes on the host
 boundary sits exactly at image upload and disparity download (SURVEY.md
 §3.1 note).  Both matching directions (L->R and the flipped R->L pass
 needed for the consistency check, SURVEY.md §3.5) are batched together
-on the leading axis so the TPU computes them in a single pass.
+on the leading axis so the device computes them in a single pass.
 
 The pyramid level loop is unrolled (shapes halve per level -> unrolled,
 not `lax.scan`, SURVEY.md C8).  The reference's recursive backtracking
@@ -25,11 +25,8 @@ import jax.numpy as jnp
 
 from ..config import Config, Geometry
 from ..ops import costvol as costvol_ops
-from ..ops import costvol_pallas
-from ..ops import fused_pallas
 from ..ops import pool as pool_ops
 from ..ops import postfilter as postfilter_ops
-from ..ops import pyramid_pallas
 from . import descriptors
 
 
@@ -54,12 +51,11 @@ def build_pyramid(cost0: jnp.ndarray, levels: int, lam: float
 
 def _select_at(values: jnp.ndarray, k: jnp.ndarray,
                acc_dtype) -> jnp.ndarray:
-    """values[i, j, k[i, j]] without a gather.
+    """values[i, j, k[i, j]] as a one-hot compare + reduce.
 
-    Per-pixel gathers along the disparity (lane) axis scalarize on TPU
-    (~10-40x slower than vector ops); a one-hot compare + lane-reduce is
-    mathematically identical — exactly one position matches, so the sum
-    IS the selected element — and stays fully vectorized on the VPU.
+    Mathematically identical to the gather — exactly one position
+    matches, so the sum IS the selected element.  Whether a plain
+    `take_along_axis` is cheaper on the GPU has not been measured.
     """
     d = jnp.arange(values.shape[-1], dtype=jnp.int32)
     sel = k[:, :, None] == d
@@ -112,47 +108,27 @@ def _select_dmajor(planes: jnp.ndarray, k: jnp.ndarray,
                    dtype=acc_dtype)
 
 
-def match_dmajor_xla(cost_dm: jnp.ndarray, levels: int, lam: float,
-                     fast: bool = False
+def match_dmajor_xla(cost_dm: jnp.ndarray, levels: int, lam: float
                      ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Pyramid + backtracking on a D-MAJOR (D, H0, W0) volume, in XLA.
+    """Pyramid + backtracking on a D-MAJOR (D, H0, W0) volume.
 
-    The large-D path (SURVEY.md §7 M3): disparity ranges whose VMEM
-    block cannot fit the fused pyramid kernel (pyramid_pallas.fits*)
-    run here.  The aggregation runs as sequential D-SLAB kernel calls
-    with per-level halo planes (pyramid_pallas.aggregate_slabs — the
-    one-chip analogue of parallel/ringd.py) where the geometry allows,
-    else in XLA with leading-axis pools; either way every backtracking
-    select is a leading-axis one-hot reduce, so nothing relays out the
-    minor (H, W) tiles the way the D-minor fallback did per level.
-    Bit-identical to build_pyramid + backtrack (same ops, same order,
-    transposed layout).
+    The layout the disparity-slab sharded strategy produces after its
+    all_to_all reshard (parallel/sharded.py).  Pools and selects run
+    along the leading axis; bit-identical to build_pyramid + backtrack
+    (same ops, same order, transposed layout).
     """
-    d0 = cost_dm.shape[0]
-    if pyramid_pallas.slab_supported(d0, cost_dm.shape[1],
-                                     cost_dm.shape[2], levels):
-        # Slab-kernel aggregation emits DUPLICATED-CELL maps (every
-        # level at full spatial resolution), so the descent needs no
-        # spatial upsampling — k is born full-res.
-        cur, args = pyramid_pallas.aggregate_slabs(cost_dm, levels, lam,
-                                                   fast=fast)
-        k = jnp.argmax(cur, axis=0).astype(jnp.int32)
-        for arg in reversed(args):
-            off = _select_dmajor(arg, k, jnp.int32)
-            k = 2 * k + off
-    else:
-        args = []
-        cur = cost_dm
-        for _ in range(levels):
-            pooled, arg = pool_ops.pool3_subsample_dmajor(cur)
-            cur = pool_ops.aggregate_children_dmajor(pooled, lam)
-            args.append(arg)
-        # Leading-axis argmax: first-max (smallest d) ties, always.
-        k = jnp.argmax(cur, axis=0).astype(jnp.int32)
-        for arg in reversed(args):
-            kr = jnp.repeat(jnp.repeat(k, 2, axis=0), 2, axis=1)
-            off = _select_dmajor(arg.astype(jnp.int32), kr, jnp.int32)
-            k = 2 * kr + off
+    args = []
+    cur = cost_dm
+    for _ in range(levels):
+        pooled, arg = pool_ops.pool3_subsample_dmajor(cur)
+        cur = pool_ops.aggregate_children_dmajor(pooled, lam)
+        args.append(arg)
+    # Leading-axis argmax: first-max (smallest d) ties, always.
+    k = jnp.argmax(cur, axis=0).astype(jnp.int32)
+    for arg in reversed(args):
+        kr = jnp.repeat(jnp.repeat(k, 2, axis=0), 2, axis=1)
+        off = _select_dmajor(arg.astype(jnp.int32), kr, jnp.int32)
+        k = 2 * kr + off
     score = _select_dmajor(cost_dm, k, jnp.float32)
     return k, score
 
@@ -163,65 +139,24 @@ def match_dmajor_xla(cost_dm: jnp.ndarray, levels: int, lam: float,
 
 
 def match_from_descriptors(desc_src: jnp.ndarray, desc_tgt: jnp.ndarray,
-                           cfg: Config, geom: Geometry, impl: str,
-                           reverse: bool = False, origin_offset: int = 0,
-                           large: bool = False
+                           cfg: Config, geom: Geometry,
+                           reverse: bool = False, origin_offset: int = 0
                            ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Cost volume + pyramid + backtracking on prepared descriptors.
 
     The shared core of both matching directions and of the sharded
     tile-local pipeline (which passes halo-extended target descriptors
     via `origin_offset`, SURVEY.md §5.7).
-
-    `large=True` declares that the CALLER executes instances
-    sequentially (lax.map, no direction/batch vmap), which admits the
-    fused pyramid kernel for VMEM-hungry large-D volumes
-    (pyramid_pallas.fits_solo) instead of the XLA pyramid fallback.
     """
-    if impl == "fused":
-        # Descriptor-level callers can't use the image->disparity fused
-        # kernel; use the exact two-kernel path.
-        impl = "pallas"
     if cfg.dtype != "float32":
         # bf16 mode (SURVEY.md §7 hard part 5): descriptors are built
         # and normalised in f32, then the cost volume and pyramid run in
-        # bf16 (half the HBM traffic); dot products still accumulate in
-        # f32 inside the kernels.  Not bit-comparable to the oracle —
-        # quality is held to the bad-pixel bound instead
-        # (tests/test_bf16.py).
+        # bf16 (half the bytes); dot products still accumulate in f32.
+        # Not bit-comparable to the oracle — quality is held to the
+        # bad-pixel bound instead (tests/test_bf16.py).
         dt = jnp.dtype(cfg.dtype)
         desc_src = desc_src.astype(dt)
         desc_tgt = desc_tgt.astype(dt)
-    h0, w0 = desc_src.shape[:2]
-    itemsize = jnp.dtype(cfg.dtype).itemsize
-    if impl == "pallas" and (
-            pyramid_pallas.fits(geom.disparities, h0, w0, geom.levels,
-                                itemsize)
-            or (large and pyramid_pallas.fits_solo(
-                geom.disparities, h0, w0, geom.levels, itemsize))):
-        # Fused fast path: D-major cost volume feeds the single fused
-        # pyramid+backtracking kernel; no (H0, W0, D) volume, level
-        # maps, or argmax offsets ever round-trip HBM.
-        with jax.named_scope("costvol"):
-            cost_dm = costvol_pallas.cost_volume_dmajor(
-                desc_src, desc_tgt, geom.disparities, cfg.patch_size,
-                cfg.max_disparity, reverse=reverse,
-                origin_offset=origin_offset)
-        with jax.named_scope("pyramid_backtrack"):
-            return pyramid_pallas.pyramid_backtrack(
-                cost_dm, geom.levels, cfg.lam)
-    if impl == "pallas":
-        # VMEM-oversized volume (pyramid_pallas.fits* False, e.g.
-        # KITTI w0=320 D>=256): Pallas D-major cost volume + D-MAJOR
-        # XLA pyramid/backtrack — leading-axis pools and selects, no
-        # per-level lane relayouts (match_dmajor_xla).
-        with jax.named_scope("costvol"):
-            cost_dm = costvol_pallas.cost_volume_dmajor(
-                desc_src, desc_tgt, geom.disparities, cfg.patch_size,
-                cfg.max_disparity, reverse=reverse,
-                origin_offset=origin_offset)
-        with jax.named_scope("pyramid_backtrack_dmajor"):
-            return match_dmajor_xla(cost_dm, geom.levels, cfg.lam)
     with jax.named_scope("costvol"):
         cost0 = costvol_ops.cost_volume(
             desc_src, desc_tgt, geom.disparities, cfg.patch_size,
@@ -234,42 +169,14 @@ def match_from_descriptors(desc_src: jnp.ndarray, desc_tgt: jnp.ndarray,
 
 
 def one_direction(left: jnp.ndarray, right: jnp.ndarray, cfg: Config,
-                  geom: Geometry, impl: str = "pallas",
-                  reverse: bool = False, large: bool = False
+                  geom: Geometry, reverse: bool = False
                   ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """(Hp, Wp) padded pair -> (disp_patch, score), both (H0, W0).
-
-    impl: 'fused' (single image->disparity kernel, ~1e-6-tolerance
-    scores, fastest), 'pallas' (exact two-kernel path), or 'jnp'.
-    'fused' silently falls back to 'pallas' for configurations the
-    fused kernel doesn't cover (ops/fused_pallas.py:supported).
-    `large`: see match_from_descriptors.
-    """
-    if impl == "fused" and not reverse and fused_pallas.supported(cfg, geom):
-        with jax.named_scope("fused_match"):
-            return fused_pallas.match_rows(left, right, cfg, geom)
-    if (impl == "fused" and not reverse
-            and fused_pallas.cost_supported(cfg, geom)):
-        # Large-D fused prologue: image -> D-major cost volume in one
-        # kernel (no descriptor HBM round-trips), then the D-slab
-        # pyramid + leading-axis backtracking.  Same tolerance class
-        # as the full fused kernel (algebraic normalisation).
-        with jax.named_scope("fused_costvol"):
-            cost_dm = fused_pallas.cost_volume_rows(left, right, cfg,
-                                                    geom)
-        with jax.named_scope("pyramid_backtrack_dmajor"):
-            # fast=True: deferred-pow slab rectification (jnp.power —
-            # bit-commutes with the pool; NOT Mosaic's exp2, which
-            # flipped 2.5% of decisions).  Same winners up to
-            # pow-collision ties; this route is tolerance-gated like
-            # the fused kernel (bench parity gates, measured exact).
-            return match_dmajor_xla(cost_dm, geom.levels, cfg.lam,
-                                    fast=True)
+    """(Hp, Wp) padded pair -> (disp_patch, score), both (H0, W0)."""
     with jax.named_scope("descriptors"):
         desc_src = descriptors.left_descriptors(left, cfg)
         desc_tgt = descriptors.right_sliding_descriptors(right, cfg)
-    return match_from_descriptors(desc_src, desc_tgt, cfg, geom, impl,
-                                  reverse=reverse, large=large)
+    return match_from_descriptors(desc_src, desc_tgt, cfg, geom,
+                                  reverse=reverse)
 
 
 # ---------------------------------------------------------------------------
@@ -286,12 +193,11 @@ def lr_consistency(disp_l: jnp.ndarray, disp_r: jnp.ndarray, tau: float,
                    num_disparities: int) -> jnp.ndarray:
     """valid[y, x] = |dL[y,x] - dR[y, x - dL[y,x]]| <= tau.
 
-    The data-dependent gather dR[y, x - dL] scalarizes on TPU (it was
-    the single most expensive op of the whole pipeline); since dL is
-    bounded by `num_disparities`, it is computed instead as a
-    `lax.scan` over the possible shifts s: each step dynamic-slices the
-    left-padded dR by s and selects it where dL == s — pure windowed
-    DMA + elementwise selects, bit-identical to the gather.
+    Since dL is bounded by `num_disparities`, the data-dependent gather
+    dR[y, x - dL] is computed as a `lax.scan` over the possible shifts
+    s: each step dynamic-slices the left-padded dR by s and selects it
+    where dL == s — windowed copies + elementwise selects,
+    bit-identical to the gather.
     """
     h, w = disp_l.shape
     pad = jnp.full((h, num_disparities), jnp.iinfo(jnp.int32).min // 2,
@@ -323,9 +229,7 @@ def lr_consistency_patch(disp_l: jnp.ndarray, disp_r: jnp.ndarray,
     dL = p*q + r, pixel column x = p*J + c reads dR's patch column
     J - q (when c >= r) or J - q - 1 (when c < r).  The shift scan
     therefore runs over q in [0, D/p) on (H0, W0) patch maps — p times
-    fewer steps on p^2 times fewer elements than the pixel formulation
-    (it replaced the single most expensive op of the jitted program
-    twice over; see the gather note on `lr_consistency`).
+    fewer steps on p^2 times fewer elements than the pixel formulation.
 
     Args:
       disp_l/disp_r: (H0, W0) int32 patch disparities.
@@ -392,7 +296,7 @@ def lr_consistency_patch_padded(disp_l: jnp.ndarray, padded: jnp.ndarray,
 
 
 def match_padded_core(left_p: jnp.ndarray, right_p: jnp.ndarray,
-                      cfg: Config, geom: Geometry, impl: str = "pallas",
+                      cfg: Config, geom: Geometry,
                       large: bool = False) -> Dict[str, jnp.ndarray]:
     """Padded pair -> PADDED (Hp, Wp) outputs; the shard-local core.
 
@@ -400,11 +304,9 @@ def match_padded_core(left_p: jnp.ndarray, right_p: jnp.ndarray,
     image size, so the sharded pipeline (parallel/sharded.py) can call it
     per H-tile with a tile-local Geometry and crop outside the shard map.
 
-    `large=True` runs the two matching directions SEQUENTIALLY
-    (lax.map) instead of vmapped — Mosaic charges co-resident vmapped
-    kernel instances against scoped VMEM together, so VMEM-hungry
-    large-D volumes only fit solo (pyramid_pallas.fits_solo; callers
-    must also not vmap over a batch).
+    `large=True` runs the two matching directions in turn (lax.map)
+    instead of vmapped, which halves the peak memory of the cost
+    volume and pyramid for large images or disparity ranges.
     """
     if cfg.lr_check and cfg.lr_mode == "flip":
         # Batch L->R with the flipped R->L pass (d_R(x) = d'_L(W-1-x)).
@@ -412,11 +314,11 @@ def match_padded_core(left_p: jnp.ndarray, right_p: jnp.ndarray,
         rights = jnp.stack([right_p, left_p[:, ::-1]])
         if large:
             (disp_patch, score_patch) = jax.lax.map(
-                lambda lr: one_direction(lr[0], lr[1], cfg, geom, impl,
-                                         large=True), (lefts, rights))
+                lambda lr: one_direction(lr[0], lr[1], cfg, geom),
+                (lefts, rights))
         else:
             (disp_patch, score_patch) = jax.vmap(
-                lambda l, r: one_direction(l, r, cfg, geom, impl)
+                lambda l, r: one_direction(l, r, cfg, geom)
             )(lefts, rights)
         disp_fwd, disp_rev = disp_patch[0], disp_patch[1]
         score = score_patch[0]
@@ -427,18 +329,18 @@ def match_padded_core(left_p: jnp.ndarray, right_p: jnp.ndarray,
         # 'direct': match right->left with +d targets — descriptors are
         # shared between the two directions, and no global flip is
         # needed (this is the form that shards over W-tiles).
-        desc_l_p = descriptors.left_descriptors(left_p, cfg)
-        desc_l_s = descriptors.right_sliding_descriptors(left_p, cfg)
-        desc_r_p = descriptors.left_descriptors(right_p, cfg)
-        desc_r_s = descriptors.right_sliding_descriptors(right_p, cfg)
+        with jax.named_scope("descriptors"):
+            desc_l_p = descriptors.left_descriptors(left_p, cfg)
+            desc_l_s = descriptors.right_sliding_descriptors(left_p, cfg)
+            desc_r_p = descriptors.left_descriptors(right_p, cfg)
+            desc_r_s = descriptors.right_sliding_descriptors(right_p, cfg)
         disp_fwd, score = match_from_descriptors(
-            desc_l_p, desc_r_s, cfg, geom, impl, large=large)
+            desc_l_p, desc_r_s, cfg, geom)
         disp_rev, _ = match_from_descriptors(
-            desc_r_p, desc_l_s, cfg, geom, impl, reverse=True, large=large)
+            desc_r_p, desc_l_s, cfg, geom, reverse=True)
         disp_r_patch = disp_rev
     else:
-        disp_fwd, score = one_direction(left_p, right_p, cfg, geom, impl,
-                                        large=large)
+        disp_fwd, score = one_direction(left_p, right_p, cfg, geom)
         disp_r_patch = None
 
     disp_px = densify(disp_fwd, cfg.patch_size)
@@ -472,18 +374,16 @@ def crop(outputs: Dict[str, jnp.ndarray], height: int, width: int
     return {k: v[..., :height, :width] for k, v in outputs.items()}
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("cfg", "height", "width", "impl"))
+@functools.partial(jax.jit, static_argnames=("cfg", "height", "width"))
 def match_padded(left_p: jnp.ndarray, right_p: jnp.ndarray, cfg: Config,
-                 height: int, width: int, impl: str = "pallas"
-                 ) -> Dict[str, jnp.ndarray]:
+                 height: int, width: int) -> Dict[str, jnp.ndarray]:
     """Jitted single-device pipeline: padded f32 pair -> cropped outputs.
 
-    `cfg`, `height`, `width`, `impl` are static; retracing happens only
-    per (shape, config), as with any XLA program.
+    `cfg`, `height`, `width` are static; retracing happens only per
+    (shape, config), as with any XLA program.
     """
     geom = cfg.geometry(height, width)
-    out = crop(match_padded_core(left_p, right_p, cfg, geom, impl),
+    out = crop(match_padded_core(left_p, right_p, cfg, geom),
                height, width)
     return apply_postfilter(out, cfg)
 

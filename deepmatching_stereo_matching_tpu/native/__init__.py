@@ -1,8 +1,8 @@
 """Native host-IO runtime: C++ codecs + threaded prefetch loader.
 
-The compute path of this framework is JAX/XLA/Pallas; the host runtime
+The compute path of this framework is JAX/XLA; the host runtime
 around it (decode, the grayscale+normalize+pad prologue, encode, and the
-prefetching data loader that overlaps decode with TPU compute) is C++
+prefetching data loader that overlaps decode with device compute) is C++
 (`src/dmstereo_io.cpp`), mirroring the native layer of the ancestral
 DeepMatching C implementation (SURVEY.md §0/§2.2).  Bindings are ctypes
 over a plain C ABI (no pybind11 in this environment).
@@ -288,7 +288,7 @@ class PairLoader:
     """Threaded prefetching loader for rectified PNM pairs.
 
     Decodes and runs the grayscale+normalize+pad prologue on C++ worker
-    threads while the TPU computes the previous batch; `__next__` yields
+    threads while the device computes the previous batch; `__next__` yields
     (index, left, right) with float32 (Hp, Wp) planes, in submission
     order (the stream runner consumes batches in order, SURVEY.md §5.3).
     """

@@ -1,11 +1,16 @@
-"""Level-0 correlation cost volume (C4) — jnp reference implementation.
+"""Level-0 correlation cost volume (C4).
 
 The reference computes this with Python loops over patches and
 disparities (BASELINE.json:5 "per-patch correlation kernel, NumPy/loop
-code"; SURVEY.md §3.2).  Here it is a single fused XLA computation: a
-`lax.scan` over the disparity axis, each step gathering the shifted
-right-descriptor columns and contracting the descriptor dimension at
-HIGHEST precision (exact f32 on the MXU).
+code"; SURVEY.md §3.2).  Here it is ONE XLA expression over all
+disparities: descriptors are laid out channel-major, the target columns
+of every (patch column, disparity) pair are gathered at once, and the
+f32 products are summed over the channels in a fixed order
+(ops/ordered.py).  XLA fuses gather, products and sum into one loop
+(the (C, H0, W0, D) products need not be stored).  No matrix unit is
+involved, so TF32 cannot enter, and every entry rounds the same
+whatever the batch or sharding — XLA's own reduce does not (its GPU
+summation order depends on the array's shape).
 
 Two generalisations serve the sharded pipeline (SURVEY.md §5.7):
   * `reverse=True` computes the right-to-left volume directly
@@ -15,17 +20,13 @@ Two generalisations serve the sharded pipeline (SURVEY.md §5.7):
   * `origin_offset` (in patch columns) says how far the *target*
     descriptor array extends to the left of the *source* patch grid's
     origin — nonzero when a W-tile carries a halo of neighbour columns.
-
-The Pallas kernel (`ops/costvol_pallas.py`) replaces this on the hot
-path; this version is the semantics anchor and the fallback.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
-_HI = jax.lax.Precision.HIGHEST
+from .ordered import ordered_sum
 
 
 def cost_volume(desc_src: jnp.ndarray, desc_tgt: jnp.ndarray,
@@ -61,27 +62,21 @@ def cost_volume(desc_src: jnp.ndarray, desc_tgt: jnp.ndarray,
         scalar (e.g. `axis_index * slab`), so one shard_map program
         serves every slab.
 
-    Returns: (H0, W0, disparities) float32.
+    Returns: (H0, W0, disparities) in desc_src's dtype.
     """
     w0 = desc_src.shape[1]
     wt = desc_tgt.shape[1]
     xs = jnp.arange(w0, dtype=jnp.int32) * patch_size \
         + patch_size * origin_offset
-
+    ds = jnp.arange(disparities, dtype=jnp.int32) \
+        + jnp.asarray(d_offset, dtype=jnp.int32)
+    x0 = (xs[:, None] + ds[None, :]) if reverse \
+        else (xs[:, None] - ds[None, :])                     # (W0, D)
+    valid = (x0 >= 0) & (x0 < wt) & (ds < max_disparity)[None, :]
+    # Channel-major, f32 products regardless of storage dtype (bf16).
+    src = jnp.moveaxis(desc_src.astype(jnp.float32), -1, 0)  # (C, H0, W0)
+    tgt = jnp.moveaxis(desc_tgt.astype(jnp.float32), -1, 0)  # (C, H0, Wt)
+    tgt = jnp.take(tgt, jnp.clip(x0, 0, wt - 1), axis=2)     # (C, H0, W0, D)
+    corr = jnp.maximum(ordered_sum(src[..., None] * tgt, axis=0), 0.0)
     dt = desc_src.dtype
-
-    def one_d(d: jnp.ndarray) -> jnp.ndarray:
-        x0 = xs + d if reverse else xs - d
-        valid = (x0 >= 0) & (x0 < wt) & (d < max_disparity)
-        tgt = jnp.take(desc_tgt, jnp.clip(x0, 0, wt - 1), axis=1)
-        # f32 accumulation regardless of storage dtype (bf16 mode).
-        corr = jnp.einsum("ijc,ijc->ij", desc_src, tgt, precision=_HI,
-                          preferred_element_type=jnp.float32)
-        corr = jnp.maximum(corr, 0.0).astype(dt)
-        return jnp.where(valid[None, :], corr, jnp.zeros((), dt))
-
-    _, planes = jax.lax.scan(
-        lambda _, d: (None, one_d(d)), None,
-        jnp.arange(disparities, dtype=jnp.int32)
-        + jnp.asarray(d_offset, dtype=jnp.int32))
-    return jnp.moveaxis(planes, 0, -1)  # (H0, W0, disparities)
+    return jnp.where(valid[None], corr.astype(dt), jnp.zeros((), dt))

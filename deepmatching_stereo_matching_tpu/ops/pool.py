@@ -71,11 +71,8 @@ def pool3_subsample_dmajor(maps: jnp.ndarray,
     """`pool3_subsample` on the D-MAJOR (D, H, W) layout.
 
     Identical values and tie order; the even/odd deinterleave becomes a
-    LEADING-axis stride, which XLA performs without touching the minor
-    (sublane, lane) register tiling — this is what makes the XLA
-    pyramid viable for large D (the D-minor layout pays a lane-axis
-    relayout per slice; measured the dominant cost of the old KITTI
-    large-D fallback).
+    leading-axis stride.  Used by the disparity-slab sharded strategies
+    (parallel/sharded.py, parallel/ringd.py), whose volumes are D-major.
     """
     even = maps[0::2]                                     # d = 2k
     odd = maps[1::2]                                      # d = 2k+1

@@ -11,14 +11,14 @@ pyramid (3x3 max-pool + x2-subsampled correlation merging with power
 rectification) [DM §3.2], top-down backtracking to dense correspondences
 [DM §3.3], and disparity extraction with left-right consistency filtering.
 
-It is also the CPU-reference baseline whose Mpx/s throughput the TPU
-pipeline must beat by >= 10x (BASELINE.md).  Style is deliberately the
+It is also the CPU-reference baseline that the device pipeline's Mpx/s
+is compared with (BASELINE.md).  Style is deliberately the
 reference's: NumPy with Python loops over disparities and pyramid levels
 (SURVEY.md §3.2 "NumPy/loop code").
 
 Everything is float32.  All tie-breaking is deterministic: the SMALLEST
 disparity index wins every argmax/max-pool tie (SURVEY.md §5.2), which the
-TPU pipeline reproduces exactly.
+device pipeline reproduces exactly.
 
 [DM] = Revaud et al., "DeepMatching: Hierarchical Deformable Dense
 Matching", IJCV 2016 (arXiv:1506.07656).

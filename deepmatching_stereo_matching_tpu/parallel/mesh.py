@@ -1,8 +1,8 @@
 """Device-mesh construction and tile-aligned geometry (SURVEY.md §2.4, §5.8).
 
 The reference is single-process CPU NumPy with no communication layer
-(SURVEY.md §2.3/§2.4) — the TPU-native framework replaces that absence
-with XLA collectives over a `jax.sharding.Mesh`.  Axes:
+(SURVEY.md §2.3/§2.4) — this framework replaces that absence with XLA
+collectives over a `jax.sharding.Mesh`.  Axes:
 
   * ``data``  — batch of stereo pairs (DP; SURVEY.md §2.3 row 1).
   * ``model`` — the intra-pair axis, used as *spatial H-tiles* during the
@@ -13,9 +13,8 @@ Spatial decomposition is over image ROWS: the DeepMatching pipeline on
 rectified pairs is row-block-local (correlation targets stay on the
 scanline; quadtree aggregation couples rows only within blocks of
 ``patch_size * 2**levels`` pixels; the LR check gathers along x only),
-so H-tiles aligned to that block size need NO halo at all — the
-TPU-first answer to the reference's nested pixel loops.  W-tiling, which
-would need D-pixel halos every level, is deliberately second choice.
+so H-tiles aligned to that block size need NO halo at all.  W-tiling,
+which needs D-pixel halos, is deliberately second choice.
 """
 
 from __future__ import annotations
@@ -48,8 +47,10 @@ def make_mesh2d(n_data: int, n_th: int, n_tw: int,
                 devices: Optional[Sequence[jax.Device]] = None) -> Mesh:
     """("data", "th", "tw") mesh for the 2-D spatial tile strategy.
 
-    ``tw`` is the halo-exchange axis (parallel/wtiled.py) and is placed
-    minor so W-neighbour `ppermute`s ride adjacent ICI links.
+    ``tw`` is the halo-exchange axis (parallel/wtiled.py).  Devices are
+    taken in `jax.devices()` order; on cards joined all to all (NVLink)
+    every neighbour pair is one hop, so the axis order follows the
+    algorithm, not the wiring.
     """
     if devices is None:
         devices = jax.devices()

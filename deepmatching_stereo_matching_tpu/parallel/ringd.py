@@ -3,13 +3,13 @@
 The dslab strategy (parallel/sharded.py) computes the level-0 cost
 volume disparity-sharded, then pays ONE full `all_to_all` to reshard
 spatial-major before the pyramid.  That reshard moves the whole volume
-over the interconnect and requires every chip to hold H0/K of the FULL
-(H0, W0, D) volume — at KITTI scale with D >= 256 the resharded slab
-plus pyramid transients can exceed a chip's comfortable HBM/VMEM
-working set (SURVEY.md §7 M3 memory budget).
+over the interconnect and requires every device to hold H0/K of the
+FULL (H0, W0, D) volume — at KITTI scale with D >= 256 the resharded
+slab plus pyramid transients grow with D (SURVEY.md §7 M3 memory
+budget).
 
 This strategy never reshards: the cost volume stays **D-sharded through
-the entire pyramid** and only (H, W) *planes* ever cross chips:
+the entire pyramid** and only (H, W) *planes* ever cross devices:
 
   * level-0 correlation computes the local slab [k*Dl, (k+1)*Dl), as in
     dslab (ops/costvol.py d_offset);
@@ -30,9 +30,7 @@ the entire pyramid** and only (H, W) *planes* ever cross chips:
 
 Per level the ring moves one (H_l, W_l) f32 plane per direction and the
 argmax/backtracking stages move K-1 + levels more — O(H*W) bytes total,
-versus the dslab all_to_all's O(H*W*D/K).  For D=256, K=8 at KITTI
-scale that is a ~256/8=32x traffic reduction, which is what makes
-D >= 256 viable across a slice.
+versus the dslab all_to_all's O(H*W*D/K).
 
 Results are BITWISE equal to the unsharded pipeline
 (tests/test_ringd.py): every cross-slab communication carries exact
@@ -50,6 +48,7 @@ from jax import shard_map
 
 from ..config import Config, Geometry
 from ..models import descriptors, pipeline
+from ..ops import costvol as costvol_ops
 from ..ops import pool as pool_ops
 
 
@@ -84,8 +83,7 @@ def _ring_argmax(val: jnp.ndarray, k: jnp.ndarray, axis: str, n: int
 
 
 def _ringd_direction(srcs: jnp.ndarray, tgts: jnp.ndarray, cfg: Config,
-                     geom: Geometry, n_slab: int, reverse: bool,
-                     impl: str = "jnp"
+                     geom: Geometry, n_slab: int, reverse: bool
                      ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Batched one-direction match with a D-sharded pyramid.
 
@@ -98,20 +96,15 @@ def _ringd_direction(srcs: jnp.ndarray, tgts: jnp.ndarray, cfg: Config,
     ax = jax.lax.axis_index("model")
     d_lo = ax * d_local
 
-    from . import sharded
-
     desc_src = jax.vmap(
         lambda x: descriptors.left_descriptors(x, cfg))(srcs)
     desc_tgt = jax.vmap(
         lambda x: descriptors.right_sliding_descriptors(x, cfg))(tgts)
-    cost = jax.vmap(
-        lambda s, t: sharded.slab_cost_volume(
-            s, t, cfg, d_local, d_lo, reverse, impl)
-    )(desc_src, desc_tgt)
-    # D-MAJOR slab pyramid: leading-axis pools/selects keep the minor
-    # (H, W) register tiles untouched on TPU (the D-minor formulation
-    # paid a lane relayout per pool — it was the dominant cost of the
-    # on-chip ringd smoke).  Values are identical in either layout.
+    cost = jax.vmap(lambda s, t: costvol_ops.cost_volume(
+        s, t, d_local, cfg.patch_size, cfg.max_disparity,
+        reverse=reverse, d_offset=d_lo))(desc_src, desc_tgt)
+    # D-MAJOR slab pyramid: the halo plane is a leading-axis slice.
+    # Values are identical in either layout.
     cost = jnp.moveaxis(cost, -1, 1)            # (B_l, Dl, H0, W0)
 
     def per_pair(cost0):                        # (Dl, H0, W0)
@@ -155,7 +148,7 @@ def _ringd_direction(srcs: jnp.ndarray, tgts: jnp.ndarray, cfg: Config,
 
 def match_batch_ringd(lefts_p: jnp.ndarray, rights_p: jnp.ndarray,
                       cfg: Config, height: int, width: int, mesh: Mesh,
-                      impl: str = "jnp", debug_checks: bool = False
+                      debug_checks: bool = False
                       ) -> Dict[str, jnp.ndarray]:
     """Batched pipeline; cost volume D-sharded through the whole pyramid.
 
@@ -163,12 +156,10 @@ def match_batch_ringd(lefts_p: jnp.ndarray, rights_p: jnp.ndarray,
       lefts_p/rights_p: (B, Hp, Wp) padded pairs, replicated over
         "model" (pad with `pad_batch(..., strategy="ringd")` — same
         slab-aligned geometry as dslab).
-      impl: "pallas" builds the slab cost volumes with the Pallas
-        kernel (sharded.slab_cost_volume); "jnp" is the XLA anchor.
       debug_checks: add an on-device checkify invariant asserting the
         winner maps really ARE replicated over the model axis — the
         property `check_vma=False` (below) stops the static checker
-        from proving (SURVEY.md §5.2; VERDICT r3 item 9).  Callers must
+        from proving (SURVEY.md §5.2).  Callers must
         wrap with `checkify.checkify` when set.
     Returns dict of (B, height, width) outputs.
     """
@@ -183,24 +174,20 @@ def match_batch_ringd(lefts_p: jnp.ndarray, rights_p: jnp.ndarray,
             srcs = jnp.concatenate([lp, rp[:, :, ::-1]])
             tgts = jnp.concatenate([rp, lp[:, :, ::-1]])
             disp, score = _ringd_direction(srcs, tgts, cfg, local,
-                                           n_slab, reverse=False,
-                                           impl=impl)
+                                           n_slab, reverse=False)
             b = lp.shape[0]
             disp_fwd, disp_rev = disp[:b], disp[b:]
             score = score[:b]
             disp_r_patch = disp_rev[:, :, ::-1]  # patch-level flip
         elif cfg.lr_check:  # 'direct'
             disp_fwd, score = _ringd_direction(lp, rp, cfg, local,
-                                               n_slab, reverse=False,
-                                               impl=impl)
+                                               n_slab, reverse=False)
             disp_rev, _ = _ringd_direction(rp, lp, cfg, local,
-                                           n_slab, reverse=True,
-                                           impl=impl)
+                                           n_slab, reverse=True)
             disp_r_patch = disp_rev
         else:
             disp_fwd, score = _ringd_direction(lp, rp, cfg, local,
-                                               n_slab, reverse=False,
-                                               impl=impl)
+                                               n_slab, reverse=False)
             disp_r_patch = None
 
         disp_px = jax.vmap(lambda x: pipeline.densify(x, p))(disp_fwd)

@@ -1,8 +1,8 @@
 """Sharded end-to-end pipeline over a ("data", "model") mesh.
 
 The reference has no parallelism of any kind (SURVEY.md §2.3); these are
-the TPU-native strategies that replace its single-process loops, built
-with `shard_map` so every collective is explicit:
+the strategies that replace its single-process loops, built with
+`shard_map` so every collective is explicit:
 
   * ``match_batch_tiled`` — DP over pairs + **spatial H-tile SP**: each
     model-shard owns a quadtree-aligned block of image rows and runs the
@@ -14,8 +14,8 @@ with `shard_map` so every collective is explicit:
     each shard builds cost-volume bins [k·Dl, (k+1)·Dl) for the full
     image — then ONE `all_to_all` over the model axis reshards
     spatial-major, and the pyramid/backtracking/LR stages run H-local.
-    This is the layout for disparity ranges too large for one chip's
-    VMEM blocking (SURVEY.md §7 M3).
+    This is the layout for disparity ranges whose volume is too large
+    for one device (SURVEY.md §7 M3).
 
 Both return bitwise-identical results to the unsharded pipeline
 (tests/test_sharded.py): tie-breaking is index-deterministic, reductions
@@ -39,7 +39,6 @@ from jax import shard_map
 from ..config import Config, Geometry
 from ..models import descriptors, pipeline
 from ..ops import costvol as costvol_ops
-from ..ops import costvol_pallas
 from . import mesh as mesh_lib
 from . import wtiled
 
@@ -50,8 +49,8 @@ from . import wtiled
 
 
 def match_batch_tiled(lefts_p: jnp.ndarray, rights_p: jnp.ndarray,
-                      cfg: Config, height: int, width: int, mesh: Mesh,
-                      impl: str = "pallas") -> Dict[str, jnp.ndarray]:
+                      cfg: Config, height: int, width: int, mesh: Mesh
+                      ) -> Dict[str, jnp.ndarray]:
     """Batched pipeline, pairs over "data", H-tiles over "model".
 
     Args:
@@ -65,16 +64,12 @@ def match_batch_tiled(lefts_p: jnp.ndarray, rights_p: jnp.ndarray,
 
     def shard_fn(lp, rp):  # (B_local, Hp_local, Wp)
         return jax.vmap(
-            lambda l, r: pipeline.match_padded_core(l, r, cfg, local, impl)
+            lambda l, r: pipeline.match_padded_core(l, r, cfg, local)
         )(lp, rp)
 
     spec = P("data", "model", None)
-    # check_vma=False: pallas_call outputs inside shard_map carry no
-    # varying-mesh-axes annotation on real TPU (jax 0.9 requires one
-    # under the static check); correctness is asserted bitwise in
-    # tests/test_sharded.py and bench.py's on-chip sharded smoke.
     out = shard_map(shard_fn, mesh=mesh, in_specs=(spec, spec),
-                    out_specs=spec, check_vma=False)(lefts_p, rights_p)
+                    out_specs=spec)(lefts_p, rights_p)
     return pipeline.apply_postfilter(
         pipeline.crop(out, height, width), cfg)
 
@@ -100,29 +95,8 @@ def _slab_geometry(cfg: Config, height: int, width: int, n_slab: int
             dataclasses.replace(local, disparities=d0))
 
 
-def slab_cost_volume(desc_src, desc_tgt, cfg: Config, d_local: int,
-                     d_offset, reverse: bool, impl: str):
-    """One shard's disparity-slab cost volume, Pallas or jnp.
-
-    The Pallas kernel is the hot path on real hardware (VERDICT r3
-    item 5 — shard bodies must run kernel-speed); the jnp form is the
-    semantics anchor (bitwise-compared in tests/test_sharded.py).
-    Slabs whose size is not a multiple of the patch size cannot use the
-    kernel's whole-patch-column target shift (its d_offset would
-    truncate) and take the jnp path regardless of `impl`.
-    """
-    if impl == "pallas" and d_local % cfg.patch_size == 0:
-        return costvol_pallas.cost_volume_slab(
-            desc_src, desc_tgt, d_local, cfg.patch_size,
-            cfg.max_disparity, reverse=reverse, d_offset=d_offset)
-    return costvol_ops.cost_volume(
-        desc_src, desc_tgt, d_local, cfg.patch_size, cfg.max_disparity,
-        reverse=reverse, d_offset=d_offset)
-
-
 def _dslab_direction(srcs: jnp.ndarray, tgts: jnp.ndarray, cfg: Config,
-                     geom: Geometry, n_slab: int, reverse: bool,
-                     impl: str = "jnp"
+                     geom: Geometry, n_slab: int, reverse: bool
                      ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Batched one-direction match, disparity-sharded correlation.
 
@@ -138,10 +112,10 @@ def _dslab_direction(srcs: jnp.ndarray, tgts: jnp.ndarray, cfg: Config,
     desc_tgt = jax.vmap(
         lambda x: descriptors.right_sliding_descriptors(x, cfg))(tgts)
     # Local disparity slab of the cost volume: (B_l, H0, W0, Dl),
-    # immediately re-laid D-MAJOR (leading-axis pools on TPU).
-    cost_slab = jax.vmap(
-        lambda s, t: slab_cost_volume(s, t, cfg, d_local, d0, reverse,
-                                      impl))(desc_src, desc_tgt)
+    # re-laid D-MAJOR so the all_to_all concatenates along D.
+    cost_slab = jax.vmap(lambda s, t: costvol_ops.cost_volume(
+        s, t, d_local, cfg.patch_size, cfg.max_disparity,
+        reverse=reverse, d_offset=d0))(desc_src, desc_tgt)
     cost_slab = jnp.moveaxis(cost_slab, -1, 1)    # (B_l, Dl, H0, W0)
     # Ulysses-style reshard: disparity-sharded -> spatial-sharded.
     cost = jax.lax.all_to_all(cost_slab, "model", split_axis=2,
@@ -154,15 +128,13 @@ def _dslab_direction(srcs: jnp.ndarray, tgts: jnp.ndarray, cfg: Config,
 
 
 def match_batch_dslab(lefts_p: jnp.ndarray, rights_p: jnp.ndarray,
-                      cfg: Config, height: int, width: int, mesh: Mesh,
-                      impl: str = "jnp") -> Dict[str, jnp.ndarray]:
+                      cfg: Config, height: int, width: int, mesh: Mesh
+                      ) -> Dict[str, jnp.ndarray]:
     """Batched pipeline with disparity-slab-parallel correlation.
 
     Args:
       lefts_p/rights_p: (B, Hp, Wp) padded pairs, replicated over
         "model" (pad with `pad_batch(..., strategy="dslab")`).
-      impl: "pallas" runs the slab cost volumes through the Pallas
-        kernel (hot path on hardware); "jnp" is the XLA anchor.
     Returns dict of (B, height, width) outputs.
     """
     n_slab = mesh.shape["model"]
@@ -174,24 +146,20 @@ def match_batch_dslab(lefts_p: jnp.ndarray, rights_p: jnp.ndarray,
             srcs = jnp.concatenate([lp, rp[:, :, ::-1]])
             tgts = jnp.concatenate([rp, lp[:, :, ::-1]])
             disp, score = _dslab_direction(srcs, tgts, cfg, local,
-                                           n_slab, reverse=False,
-                                           impl=impl)
+                                           n_slab, reverse=False)
             b = lp.shape[0]
             disp_fwd, disp_rev = disp[:b], disp[b:]
             score = score[:b]
             disp_r_patch = disp_rev[:, :, ::-1]  # patch-level flip
         elif cfg.lr_check:  # 'direct'
             disp_fwd, score = _dslab_direction(lp, rp, cfg, local,
-                                               n_slab, reverse=False,
-                                               impl=impl)
+                                               n_slab, reverse=False)
             disp_rev, _ = _dslab_direction(rp, lp, cfg, local,
-                                           n_slab, reverse=True,
-                                           impl=impl)
+                                           n_slab, reverse=True)
             disp_r_patch = disp_rev
         else:
             disp_fwd, score = _dslab_direction(lp, rp, cfg, local,
-                                               n_slab, reverse=False,
-                                               impl=impl)
+                                               n_slab, reverse=False)
             disp_r_patch = None
 
         disp_px = jax.vmap(lambda x: pipeline.densify(x, p))(disp_fwd)
@@ -217,14 +185,10 @@ def match_batch_dslab(lefts_p: jnp.ndarray, rights_p: jnp.ndarray,
             "disparity_right": disp_r_px,
         }
 
-    # check_vma=False: pallas_call outputs inside shard_map carry no
-    # varying-mesh-axes annotation (as in match_batch_tiled above);
-    # bitwise tests + bench.py's on-chip smoke are the backstop.
     out = shard_map(
         shard_fn, mesh=mesh,
         in_specs=(P("data", None, None), P("data", None, None)),
-        out_specs=P("data", "model", None),
-        check_vma=False)(lefts_p, rights_p)
+        out_specs=P("data", "model", None))(lefts_p, rights_p)
     return pipeline.apply_postfilter(
         pipeline.crop(out, height, width), cfg)
 
@@ -259,8 +223,8 @@ class PaddedPlane(np.ndarray):
     and padded to a strategy geometry (runner.pairs_from_paths emits
     these).  `pad_batch` copies marked planes through untouched; plain
     arrays always go through grayscale-normalisation — shape/dtype
-    coincidence alone never bypasses it (ADVICE r3: an aligned-size
-    float image in 8-bit range must not skip the /255)."""
+    coincidence alone never bypasses it (an aligned-size float image
+    in 8-bit range must not skip the /255)."""
 
 
 def as_padded(plane) -> PaddedPlane:
@@ -309,27 +273,26 @@ def input_sharding(mesh: Mesh, strategy: str = "tiled") -> NamedSharding:
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "height", "width",
-                                             "mesh", "strategy", "impl",
+                                             "mesh", "strategy",
                                              "merge_level", "debug_checks"))
 def match_batch_sharded(lefts_p, rights_p, cfg: Config, height: int,
                         width: int, mesh: Mesh, strategy: str = "tiled",
-                        impl: str = "pallas", merge_level=None,
-                        debug_checks: bool = False):
+                        merge_level=None, debug_checks: bool = False):
     """Jitted entry: dispatches to a sharded pipeline strategy.
 
     `debug_checks` (ringd only) adds the on-device replication
     invariant; wrap the call with `checkify.checkify` when set."""
     if strategy == "tiled":
         return match_batch_tiled(lefts_p, rights_p, cfg, height, width,
-                                 mesh, impl)
+                                 mesh)
     if strategy == "dslab":
         return match_batch_dslab(lefts_p, rights_p, cfg, height, width,
-                                 mesh, impl)
+                                 mesh)
     if strategy == "ringd":
         from . import ringd
         return ringd.match_batch_ringd(lefts_p, rights_p, cfg, height,
-                                       width, mesh, impl, debug_checks)
+                                       width, mesh, debug_checks)
     if strategy == "wtiled":
         return wtiled.match_batch_tiled2d(lefts_p, rights_p, cfg, height,
-                                          width, mesh, impl, merge_level)
+                                          width, mesh, merge_level)
     raise ValueError(f"unknown strategy {strategy!r}")

@@ -1,11 +1,11 @@
 """2-D spatial tile sharding with `ppermute` halo exchange (SURVEY.md §5.7).
 
-The reference is a single-process CPU script (SURVEY.md §2.3); its TPU
-replacement must scale the image plane over chips.  `sharded.py`'s
+The reference is a single-process CPU script (SURVEY.md §2.3); its
+replacement must scale the image plane over devices.  `sharded.py`'s
 H-tiles are zero-communication but cap the model axis at
 ``H / (patch * 2**levels)`` tiles; this module adds the halo-exchange
 axes mandated by BASELINE.json:5 ("partitioning image tiles ... with
-halo exchange and pyramid-level reductions over ICI collectives"):
+halo exchange and pyramid-level reductions over collectives"):
 
   * **W-tiles** over a ``tw`` mesh axis.  Disparity search is along x,
     so each tile needs a halo of ``ceil(D/p)`` patch columns of the
@@ -26,8 +26,7 @@ halo exchange and pyramid-level reductions over ICI collectives"):
     `all_gather` over ``tw``, the (tiny) coarse levels run replicated,
     and backtracking descends replicated to level l0 where each tile
     slices its span and continues locally.  This removes the alignment
-    cap on tile count (VERDICT.md Missing #1) at the cost of one small
-    collective.
+    cap on tile count at the cost of one small collective.
   * The **LR consistency** gather ``dR[x - dL]`` crosses tile
     boundaries (SURVEY.md §3.5); the W-neighbour's trailing patch
     columns are `ppermute`d in and fed to the pre-padded LR core
@@ -58,7 +57,6 @@ from jax import shard_map
 from ..config import Config, Geometry
 from ..models import descriptors, pipeline
 from ..ops import costvol as costvol_ops
-from ..ops import costvol_pallas
 
 
 # ---------------------------------------------------------------------------
@@ -106,9 +104,9 @@ def halo_patches(cfg: Config) -> int:
 
     The forward direction reads target columns down to ``p*j - (D-1)``
     and the reverse up to ``p*j + (D-1) + (p-1)`` (sliding-window
-    extent), both within ``ceil(D/p) * p`` pixels of the tile
-    (VERDICT.md next-round item 1 "D/p+1 patch-columns" counts the LR
-    halo's +1; see `match_batch_tiled2d`).
+    extent), both within ``ceil(D/p) * p`` pixels of the tile (the LR
+    check's halo needs one patch column more; see
+    `match_batch_tiled2d`).
     """
     return -(-cfg.max_disparity // cfg.patch_size)
 
@@ -220,28 +218,26 @@ def _features_slab(slab: jnp.ndarray, cfg: Config, row0, col0,
 
 
 def _match_tile(desc_src: jnp.ndarray, desc_tgt: jnp.ndarray, cfg: Config,
-                local: Geometry, l0: int, halo_q: int,
-                impl: str, reverse: bool
+                local: Geometry, l0: int, halo_q: int, reverse: bool
                 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """One direction on a tile: halo-extended targets, optional merge.
 
-    When l0 == levels the whole pyramid is tile-local and any impl
-    (Pallas included) runs unchanged via `match_from_descriptors`.
-    Otherwise levels <= l0 run tile-local, ONE `all_gather` over ``tw``
-    merges the level-l0 maps full-width (the "pyramid-level reductions
-    over ICI collectives" of BASELINE.json:5), the replicated coarse
+    When l0 == levels the whole pyramid is tile-local and runs
+    unchanged via `match_from_descriptors`.  Otherwise levels <= l0
+    run tile-local, ONE `all_gather` over ``tw`` merges the level-l0
+    maps full-width (the "pyramid-level reductions over collectives"
+    of BASELINE.json:5), the replicated coarse
     levels + top argmax run on every tile identically, and backtracking
     re-enters the tile at level l0 via a dynamic slice.
     """
     if l0 == local.levels:
         return pipeline.match_from_descriptors(
-            desc_src, desc_tgt, cfg, local, impl, reverse=reverse,
+            desc_src, desc_tgt, cfg, local, reverse=reverse,
             origin_offset=halo_q)
 
-    cv = costvol_ops.cost_volume if impl == "jnp" \
-        else costvol_pallas.cost_volume
-    cost0 = cv(desc_src, desc_tgt, local.disparities, cfg.patch_size,
-               cfg.max_disparity, reverse=reverse, origin_offset=halo_q)
+    cost0 = costvol_ops.cost_volume(
+        desc_src, desc_tgt, local.disparities, cfg.patch_size,
+        cfg.max_disparity, reverse=reverse, origin_offset=halo_q)
     maps, args = pipeline.build_pyramid(cost0, l0, cfg.lam)
     top_full = jax.lax.all_gather(maps[l0], "tw", axis=1, tiled=True)
     cmaps, cargs = pipeline.build_pyramid(
@@ -264,7 +260,6 @@ def _match_tile(desc_src: jnp.ndarray, desc_tgt: jnp.ndarray, cfg: Config,
 
 def match_batch_tiled2d(lefts_p: jnp.ndarray, rights_p: jnp.ndarray,
                         cfg: Config, height: int, width: int, mesh: Mesh,
-                        impl: str = "pallas",
                         merge_level: Optional[int] = None
                         ) -> Dict[str, jnp.ndarray]:
     """Batched pipeline over a ("data", "th", "tw") mesh.
@@ -318,7 +313,7 @@ def match_batch_tiled2d(lefts_p: jnp.ndarray, rights_p: jnp.ndarray,
         desc_tgt = descriptors.sliding_descriptors(
             feat_t, cfg, col0=col0, width_global=glob.padded_width)
         return _match_tile(desc_src, desc_tgt, cfg, local, l0, halo_q,
-                           impl, reverse)
+                           reverse)
 
     fwd = functools.partial(per_pair, reverse=False)
 
@@ -374,10 +369,7 @@ def match_batch_tiled2d(lefts_p: jnp.ndarray, rights_p: jnp.ndarray,
         }
 
     spec = P("data", "th", "tw")
-    # check_vma=False: see parallel/sharded.py:match_batch_tiled — the
-    # Pallas kernels' out_shapes carry no vma annotation on real TPU.
     out = shard_map(shard_fn, mesh=mesh, in_specs=(spec, spec),
-                    check_vma=False,
                     out_specs=spec)(lefts_p, rights_p)
     return pipeline.apply_postfilter(
         pipeline.crop(out, height, width), cfg)

@@ -7,17 +7,12 @@ pushing disparity bins out of range.  This module provides:
 
   * `validate_images` — host-side input validation (shape, dtype,
     finiteness) with precise error messages, used by the API boundary.
-  * `checked_match_padded` — the jnp pipeline wrapped in
+  * `checked_match_padded` — the pipeline wrapped in
     `jax.experimental.checkify` user checks asserting the pipeline's
     core invariants ON DEVICE: finite scores, disparity bins inside
     [0, D), validity mask consistent with the NaN sentinel.  The
     deliberate NaN sentinel in `disparity` is applied AFTER the checked
     stages, so the checks carry no false positives.
-
-The checked path runs the `jnp` implementation (checkify cannot see
-inside compiled Pallas kernels; the kernels are bit-compared against
-this path in the test suite, so an invariant violation would surface
-here first anyway).
 """
 
 from __future__ import annotations
@@ -72,7 +67,7 @@ def checked_match_padded(left_p, right_p, cfg: Config, height: int,
     def run(lp, rp):
         checkify.check(jnp.isfinite(lp).all() & jnp.isfinite(rp).all(),
                        "non-finite values in padded input images")
-        out = pipeline.match_padded_core(lp, rp, cfg, geom, "jnp")
+        out = pipeline.match_padded_core(lp, rp, cfg, geom)
         checkify.check(jnp.isfinite(out["score"]).all(),
                        "non-finite correlation scores")
         raw = out["disparity_raw"]
@@ -86,7 +81,7 @@ def checked_match_padded(left_p, right_p, cfg: Config, height: int,
         # Post-filter AFTER the checks (fill_invalid rewrites the NaN
         # sentinel, so the sentinel/validity invariant is checked on the
         # pre-filter values) so the checked path stays the normal
-        # pipeline plus checks, never a divergent one (ADVICE r3).
+        # pipeline plus checks, never a divergent one.
         return pipeline.apply_postfilter(
             pipeline.crop(out, height, width), cfg)
 

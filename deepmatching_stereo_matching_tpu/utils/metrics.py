@@ -2,7 +2,7 @@
 
 The driver-defined metrics (BASELINE.json:2) are the bad-pixel rate at
 delta <= 1 px on ground-truth disparity, and cost-volume megapixels per
-second per chip.
+second per device.
 """
 
 from __future__ import annotations

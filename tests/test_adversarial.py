@@ -1,4 +1,4 @@
-"""Adversarial synthetic scenes (VERDICT r3 item 7).
+"""Adversarial synthetic scenes.
 
 data/synthetic.py:adversarial_pair builds the regimes the LR
 consistency check and post-filter exist for — occlusion bands at
@@ -27,7 +27,7 @@ def run_device(left, right, cfg):
     lp = oracle.pad_image(oracle.to_grayscale_f32(left), geom)
     rp = oracle.pad_image(oracle.to_grayscale_f32(right), geom)
     return {k: np.asarray(v) for k, v in
-            pipeline.match_padded(lp, rp, cfg, H, W, "jnp").items()}
+            pipeline.match_padded(lp, rp, cfg, H, W).items()}
 
 
 def test_occlusion_mask_exact():
@@ -93,4 +93,4 @@ def run_device_small(left, right, cfg):
     lp = oracle.pad_image(oracle.to_grayscale_f32(left), geom)
     rp = oracle.pad_image(oracle.to_grayscale_f32(right), geom)
     return {k: np.asarray(v) for k, v in
-            pipeline.match_padded(lp, rp, cfg, h, w, "jnp").items()}
+            pipeline.match_padded(lp, rp, cfg, h, w).items()}

@@ -11,21 +11,16 @@ import pytest
 
 from deepmatching_stereo_matching_tpu import Config, api
 from deepmatching_stereo_matching_tpu.data.synthetic import make_block_pair
-from deepmatching_stereo_matching_tpu.ops._dispatch import set_implementation
 from deepmatching_stereo_matching_tpu.utils.metrics import bad_pixel_rate
 
 
-@pytest.mark.parametrize("impl", ["jnp", "pallas", "fused"])
-def test_bf16_quality_within_bound(impl):
-    cfg16 = Config(max_disparity=24, dtype="bfloat16")
+@pytest.mark.parametrize("descriptor,lr_mode", [
+    ("patch", "flip"), ("grad_hist", "flip"), ("patch", "direct")])
+def test_bf16_quality_within_bound(descriptor, lr_mode):
+    cfg16 = Config(max_disparity=24, dtype="bfloat16",
+                   descriptor=descriptor, lr_mode=lr_mode)
     left, right, gt = make_block_pair(96, 144, max_disparity=24, seed=4)
-    if impl == "fused":
-        from deepmatching_stereo_matching_tpu.ops import fused_pallas
-        geom = cfg16.geometry(96, 144)
-        assert fused_pallas.supported(cfg16, geom), \
-            "bench-class bf16 geometry must take the fused fast path"
-    with set_implementation(impl):
-        res = api.match_stereo(left, right, cfg16)
+    res = api.match_stereo(left, right, cfg16)
     assert res.disparity.dtype == np.float32  # outputs stay f32
     rate = bad_pixel_rate(res.disparity, gt, count_invalid=False)
     assert rate < 0.05, rate
@@ -35,9 +30,8 @@ def test_bf16_close_to_f32_decisions():
     cfg32 = Config(max_disparity=24)
     cfg16 = Config(max_disparity=24, dtype="bfloat16")
     left, right, _ = make_block_pair(96, 144, max_disparity=24, seed=8)
-    with set_implementation("jnp"):
-        r32 = api.match_stereo(left, right, cfg32)
-        r16 = api.match_stereo(left, right, cfg16)
+    r32 = api.match_stereo(left, right, cfg32)
+    r16 = api.match_stereo(left, right, cfg16)
     both = r32.valid & r16.valid
     agree = np.mean(
         r32.disparity_raw[both] == r16.disparity_raw[both])

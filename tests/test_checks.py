@@ -27,7 +27,7 @@ def test_debug_checks_pass_on_valid_pair():
     left, right, gt = make_block_pair(48, 64, max_disparity=8, seed=0)
     cfg = Config(max_disparity=8, levels=2)
     res = api.match_stereo(left, right, cfg, debug_checks=True)
-    base = api.match_stereo(left, right, cfg, impl="jnp")
+    base = api.match_stereo(left, right, cfg)
     np.testing.assert_array_equal(res.disparity_raw, base.disparity_raw)
     np.testing.assert_array_equal(res.valid, base.valid)
 

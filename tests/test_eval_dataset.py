@@ -55,7 +55,7 @@ def test_end_to_end_cli(tmp_path):
     out = tmp_path / "report.json"
     proc = subprocess.run(
         [sys.executable, os.path.join(REPO, "tools", "eval_dataset.py"),
-         str(tmp_path), "-D", "16", "--impl", "jnp", "--cpu",
+         str(tmp_path), "-D", "16", "--cpu",
          "--oracle-check", "1", "--out", str(out)],
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]

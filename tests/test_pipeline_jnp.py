@@ -17,6 +17,7 @@ import jax.numpy as jnp
 
 from deepmatching_stereo_matching_tpu import Config
 from deepmatching_stereo_matching_tpu.api import match_stereo, preprocess
+from deepmatching_stereo_matching_tpu.data import synthetic
 from deepmatching_stereo_matching_tpu.data.synthetic import make_block_pair
 from deepmatching_stereo_matching_tpu.models import descriptors, pipeline
 from deepmatching_stereo_matching_tpu.ops import costvol as costvol_ops
@@ -206,8 +207,8 @@ def test_match_padded_core_large_serial_bitwise():
     left, right, _ = synthetic.make_pair(h, w, field, seed=2)
     lp = jnp.asarray(oracle.pad_image(oracle.to_grayscale_f32(left), geom))
     rp = jnp.asarray(oracle.pad_image(oracle.to_grayscale_f32(right), geom))
-    a = pipeline.match_padded_core(lp, rp, cfg, geom, "jnp", large=True)
-    b = pipeline.match_padded_core(lp, rp, cfg, geom, "jnp")
+    a = pipeline.match_padded_core(lp, rp, cfg, geom, large=True)
+    b = pipeline.match_padded_core(lp, rp, cfg, geom)
     for k in a:
         if k == "score":
             # XLA fuses the scan-mapped descriptor normalisation
@@ -273,28 +274,22 @@ class TestDmajorPoolOps:
             np.moveaxis(np.asarray(got), 0, -1), np.asarray(want))
 
 
-def test_lane_aligned_padding_is_result_invariant():
-    """The r5 lane-align rule (Config.padded_image_size pads width so
-    W0 is a multiple of 128 when cheap) must not change any cropped
-    output: padding columns are zero descriptors that score exactly 0
-    (the oracle's out-of-range rule), in BOTH matching directions (the
-    flip direction sees them as left-side zeros, same as the out-of-
-    image halo).  Compare against a manually narrower padding."""
+@pytest.mark.parametrize("descriptor", ["patch", "grad_hist"])
+def test_extra_zero_width_padding_is_result_invariant(descriptor):
+    """Extra zero padding (whole quadtree blocks) beyond a width that is
+    already padded must not change any cropped output: padding columns
+    are zero descriptors that score exactly 0 (the oracle's out-of-range
+    rule), in BOTH matching directions (the flip direction sees them as
+    left-side zeros, same as the out-of-image halo).  The image already
+    has padding columns here (150 -> 160), which grad_hist needs: its
+    gradient at the last image column is one-sided only when no padding
+    column follows it."""
     import dataclasses
 
-    import jax.numpy as jnp
-
-    from deepmatching_stereo_matching_tpu import Config
-    from deepmatching_stereo_matching_tpu.data import synthetic
-    from deepmatching_stereo_matching_tpu.models import pipeline
-    from deepmatching_stereo_matching_tpu.oracle import reference as oracle
-
-    h, w, max_d = 64, 150, 16   # w pads to 192 under the unit rule
-    cfg = Config(max_disparity=max_d, levels=2)
+    h, w, max_d = 64, 150, 16
+    cfg = Config(max_disparity=max_d, levels=2, descriptor=descriptor)
     geom = cfg.geometry(h, w)
-    # Build a WIDER, lane-misaligned-vs-aligned comparison directly:
-    # the shipped geometry vs one padded 64 px further (both are legal
-    # paddings; results on the true image must agree bitwise).
+    assert geom.padded_width > w
     wider = dataclasses.replace(
         geom, padded_width=geom.padded_width + 64,
         grid_w=(geom.padded_width + 64) // cfg.patch_size)
@@ -307,9 +302,63 @@ def test_lane_aligned_padding_is_result_invariant():
                                           g))
         rp = jnp.asarray(oracle.pad_image(oracle.to_grayscale_f32(right),
                                           g))
-        core = pipeline.match_padded_core(lp, rp, cfg, g, "jnp")
-        outs.append({k: np.asarray(v)[:h, :w]
+        core = pipeline.match_padded_core(lp, rp, cfg, g)
+        outs.append({k: np.asarray(v)
                      for k, v in pipeline.crop(core, h, w).items()})
     for k in outs[0]:
         np.testing.assert_array_equal(outs[0][k], outs[1][k],
                                       err_msg=f"padding changed {k}")
+
+
+def _noise_pair(rng, hp, wp):
+    left = rng.standard_normal((hp, wp)).astype(np.float32) * 0.3 + 0.5
+    right = rng.standard_normal((hp, wp)).astype(np.float32) * 0.3 + 0.5
+    return left, right
+
+
+def _oracle_one_direction(left, right, cfg, geom):
+    dl = oracle.left_descriptors(left, cfg)
+    dr = oracle.right_sliding_descriptors(right, cfg)
+    cost = oracle.cost_volume(dl, dr, geom.disparities, cfg.patch_size,
+                              cfg.max_disparity)
+    return oracle.backtrack(*oracle.build_pyramid(cost, geom.levels,
+                                                  cfg.lam))
+
+
+@pytest.mark.parametrize("descriptor", ["patch", "grad_hist"])
+@pytest.mark.parametrize("h0,w0,max_d,levels", [
+    (8, 16, 16, 2),       # single quadtree block row
+    (16, 16, 16, 2),      # two block rows
+    (16, 24, 13, 2),      # padding bins d >= max_disparity
+    (32, 48, 32, 3),      # deeper pyramid
+])
+def test_one_direction_matches_oracle(h0, w0, max_d, levels, descriptor):
+    """Image -> (disparity, score) on noise images: decisions exactly the
+    oracle's, scores to f32 rounding."""
+    rng = np.random.default_rng(h0 + w0 + max_d)
+    p = 4
+    cfg = Config(max_disparity=max_d, levels=levels, descriptor=descriptor)
+    geom = cfg.geometry(h0 * p, w0 * p)
+    left, right = _noise_pair(rng, h0 * p, w0 * p)
+    want_d, want_s = _oracle_one_direction(left, right, cfg, geom)
+    got_d, got_s = jax.jit(pipeline.one_direction, static_argnums=(2, 3))(
+        jnp.asarray(left), jnp.asarray(right), cfg, geom)
+    np.testing.assert_array_equal(np.asarray(got_d), want_d)
+    np.testing.assert_allclose(np.asarray(got_s), want_s, atol=2e-6)
+
+
+def test_left_edge_out_of_range_scores_zero():
+    """Patches whose chosen disparity reaches left of the image score
+    exactly 0 (the oracle's zero rule), and decisions match it."""
+    rng = np.random.default_rng(7)
+    p, h0, w0, max_d, levels = 4, 8, 8, 16, 2
+    cfg = Config(max_disparity=max_d, levels=levels)
+    geom = cfg.geometry(h0 * p, w0 * p)
+    left, right = _noise_pair(rng, h0 * p, w0 * p)
+    got_d, got_s = pipeline.one_direction(jnp.asarray(left),
+                                          jnp.asarray(right), cfg, geom)
+    got_d, got_s = np.asarray(got_d), np.asarray(got_s)
+    want_d, _ = _oracle_one_direction(left, right, cfg, geom)
+    np.testing.assert_array_equal(got_d, want_d)
+    cols = np.arange(w0)[None, :] * p
+    assert not got_s[got_d > cols].any()

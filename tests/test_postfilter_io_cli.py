@@ -59,12 +59,8 @@ def test_pipeline_with_postfilter_matches_oracle():
     want = oracle.match_stereo(left, right, cfg)
 
     from deepmatching_stereo_matching_tpu import api
-    from deepmatching_stereo_matching_tpu.ops._dispatch import (
-        set_implementation,
-    )
 
-    with set_implementation("jnp"):
-        got = api.match_stereo(left, right, cfg)
+    got = api.match_stereo(left, right, cfg)
     np.testing.assert_array_equal(got.disparity, want.disparity)
 
 
@@ -90,6 +86,25 @@ def test_png16_roundtrip(tmp_path):
     valid = np.isfinite(d) & (d > 0)
     np.testing.assert_allclose(back[valid], d[valid], atol=1 / 256)
     assert np.isnan(back[~np.isfinite(d)]).all()
+
+
+@pytest.mark.parametrize("kind", ["gray8", "rgb8", "gray16"])
+def test_stdlib_png_encoder_roundtrip(tmp_path, kind):
+    """The compiler-free PNG fallback writes files a standard decoder
+    reads back exactly."""
+    from PIL import Image
+
+    rng = np.random.default_rng(6)
+    if kind == "gray8":
+        img = rng.integers(0, 256, (9, 13), dtype=np.uint8)
+    elif kind == "rgb8":
+        img = rng.integers(0, 256, (9, 13, 3), dtype=np.uint8)
+    else:
+        img = rng.integers(0, 65536, (9, 13), dtype=np.uint16)
+    path = tmp_path / f"{kind}.png"
+    path.write_bytes(writers.encode_png(img))
+    with Image.open(path) as im:
+        np.testing.assert_array_equal(np.asarray(im), img)
 
 
 def test_colorize_shapes_and_invalid():
@@ -133,7 +148,7 @@ def run_cli(*argv):
 def test_cli_demo_writes_outputs(tmp_path):
     out = str(tmp_path / "run")
     meta = run_cli("--demo", "--demo-size", "80", "120", "-D", "16",
-                   "--impl", "jnp", "-o", out)
+                   "-o", out)
     assert meta["coverage"] > 0.3
     for name in ("disparity.pfm", "disparity_16bit.png",
                  "disparity_color.png", "valid.png", "metrics.json"):
@@ -151,6 +166,6 @@ def test_cli_image_files_with_gt(tmp_path):
     gtf = gt.astype(np.float32)
     gtf[gt < 0] = np.nan
     writers.write_disparity_png16(gtp, gtf)
-    meta = run_cli(lp, rp, "-D", "16", "--impl", "jnp", "--gt", gtp)
+    meta = run_cli(lp, rp, "-D", "16", "--gt", gtp)
     assert "bad_pixel_rate_kept" in meta
     assert meta["bad_pixel_rate_kept"] < 0.35  # 8-bit quantised inputs

@@ -40,7 +40,7 @@ def unsharded_reference(pairs, cfg):
         geom = cfg.geometry(H, W)
         lp = oracle.pad_image(oracle.to_grayscale_f32(left), geom)
         rp = oracle.pad_image(oracle.to_grayscale_f32(right), geom)
-        outs.append(pipeline.match_padded(lp, rp, cfg, H, W, "jnp"))
+        outs.append(pipeline.match_padded(lp, rp, cfg, H, W))
     return {k: np.stack([np.asarray(o[k]) for o in outs])
             for k in outs[0]}
 
@@ -54,7 +54,7 @@ def run_ringd(pairs, cfg, mesh):
     lefts = jax.device_put(lefts, sharding)
     rights = jax.device_put(rights, sharding)
     return parallel.match_batch_sharded(lefts, rights, cfg, H, W, mesh,
-                                        "ringd", "jnp")
+                                        "ringd")
 
 
 @pytest.mark.parametrize("lr_mode", ["flip", "direct"])
@@ -143,39 +143,22 @@ def test_ring_argmax_unit():
     np.testing.assert_array_equal(np.asarray(got), want)
 
 
-def test_ringd_pallas_costvol_matches_unsharded():
-    """Slab bodies running the Pallas cost volume (interpret mode on
-    CPU) == the unsharded Pallas pipeline, bitwise on decisions
-    (VERDICT r3 item 5: kernel-speed shard bodies)."""
+def test_ringd_four_slabs_d32_matches_unsharded():
+    """D=32 over 4 slabs of 8 bins (two patch columns of shift each)
+    == the unsharded pipeline, bitwise on every output."""
     cfg = Config(max_disparity=32, levels=2)
     mesh = parallel.make_mesh(1, 4)
     pairs = make_batch(2, 32, seed=21)
-    lefts = parallel.pad_batch([p[0] for p in pairs], cfg, H, W, mesh,
-                               "ringd")
-    rights = parallel.pad_batch([p[1] for p in pairs], cfg, H, W, mesh,
-                                "ringd")
-    sharding = parallel.input_sharding(mesh, "ringd")
-    got = parallel.match_batch_sharded(
-        jax.device_put(lefts, sharding), jax.device_put(rights, sharding),
-        cfg, H, W, mesh, "ringd", "pallas")
+    got = run_ringd(pairs, cfg, mesh)
     want = unsharded_reference(pairs, cfg)
     for k in want:
-        if k == "score":
-            # Decisions are the bitwise contract; the Pallas cost
-            # kernel's sublane reduce rounds scores differently at the
-            # last ulp than the jnp einsum (same contract as bench.py's
-            # sharded smoke).
-            np.testing.assert_allclose(np.asarray(got[k]), want[k],
-                                       rtol=1e-6, atol=1e-6)
-        else:
-            np.testing.assert_array_equal(np.asarray(got[k]), want[k],
-                                          err_msg=f"pallas-slab/{k}")
+        np.testing.assert_array_equal(np.asarray(got[k]), want[k],
+                                      err_msg=f"ringd-d32/{k}")
 
 
 def test_ringd_debug_checks_replication_invariant():
     """debug_checks=True adds the on-device replication assert
-    (compensating for check_vma=False); a clean run must pass it
-    (VERDICT r3 item 9)."""
+    (compensating for check_vma=False); a clean run must pass it."""
     from jax.experimental import checkify
 
     cfg = Config(max_disparity=16, levels=2)
@@ -189,7 +172,7 @@ def test_ringd_debug_checks_replication_invariant():
 
     def run(lp, rp):
         return parallel.match_batch_sharded(lp, rp, cfg, H, W, mesh,
-                                            "ringd", "jnp", None, True)
+                                            "ringd", None, True)
 
     checked = checkify.checkify(run, errors=checkify.user_checks)
     err, out = checked(jax.device_put(lefts, sharding),

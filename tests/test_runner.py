@@ -48,7 +48,7 @@ def test_stream_completes_and_reports(tmp_path):
 
 
 def test_stream_tail_batch_padding():
-    """Padded tail slots are excluded from all accounting (VERDICT r1 #7)."""
+    """Padded tail slots are excluded from all accounting."""
     cfg = Config(max_disparity=D)
     mesh = parallel.make_mesh(1, 8)
     results = {}
@@ -83,7 +83,7 @@ def test_stream_retries_transient_failure():
         if calls["n"] == 2:
             raise RuntimeError("injected: lost host")
         return parallel.match_batch_sharded(lp, rp, cfg, H, W, mesh,
-                                            "tiled", "jnp")
+                                            "tiled")
 
     report = parallel.run_stream(make_pairs(8), cfg, H, W, mesh,
                                  batch_size=4, _match_fn=flaky)

@@ -37,7 +37,7 @@ def unsharded_reference(pairs, cfg):
         geom = cfg.geometry(H, W)
         lp = oracle.pad_image(oracle.to_grayscale_f32(left), geom)
         rp = oracle.pad_image(oracle.to_grayscale_f32(right), geom)
-        outs.append(pipeline.match_padded(lp, rp, cfg, H, W, "jnp"))
+        outs.append(pipeline.match_padded(lp, rp, cfg, H, W))
     return {k: np.stack([np.asarray(o[k]) for o in outs])
             for k in outs[0]}
 
@@ -56,45 +56,11 @@ def test_sharded_matches_unsharded(strategy, lr_mode):
     lefts = jax.device_put(lefts, sharding)
     rights = jax.device_put(rights, sharding)
     got = parallel.match_batch_sharded(lefts, rights, cfg, H, W, mesh,
-                                       strategy, "jnp")
+                                       strategy)
     want = unsharded_reference(pairs, cfg)
     for k in want:
         np.testing.assert_array_equal(
             np.asarray(got[k]), want[k], err_msg=f"{strategy}/{lr_mode}/{k}")
-
-
-def test_tiled_runs_fused_kernel_in_shard_body():
-    """H-tile shard bodies run the FLAGSHIP fused kernel (VERDICT r4
-    item 2): match_batch_tiled(impl='fused') must reproduce the
-    unsharded fused pipeline exactly — the per-chip speed the
-    recommended DP deployment inherits is the fused kernel's."""
-    from deepmatching_stereo_matching_tpu.ops import fused_pallas
-    from deepmatching_stereo_matching_tpu.parallel import mesh as mesh_lib
-
-    cfg = Config(max_disparity=D)
-    mesh = parallel.make_mesh(2, 4)
-    # The tile-local geometry must be fused-kernel-eligible, or the
-    # shard body would silently demote to the two-kernel path.
-    _, local = mesh_lib.tiled_geometry(cfg, H, W, mesh.shape["model"])
-    assert fused_pallas.supported(cfg, local)
-    pairs = make_batch(4)
-    lefts = parallel.pad_batch([p[0] for p in pairs], cfg, H, W, mesh)
-    rights = parallel.pad_batch([p[1] for p in pairs], cfg, H, W, mesh)
-    sharding = parallel.input_sharding(mesh, "tiled")
-    got = parallel.match_batch_sharded(
-        jax.device_put(lefts, sharding), jax.device_put(rights, sharding),
-        cfg, H, W, mesh, "tiled", "fused")
-    outs = []
-    for left, right in pairs:
-        geom = cfg.geometry(H, W)
-        lp = oracle.pad_image(oracle.to_grayscale_f32(left), geom)
-        rp = oracle.pad_image(oracle.to_grayscale_f32(right), geom)
-        outs.append(pipeline.match_padded(lp, rp, cfg, H, W, "fused"))
-    want = {k: np.stack([np.asarray(o[k]) for o in outs])
-            for k in outs[0]}
-    for k in want:
-        np.testing.assert_array_equal(
-            np.asarray(got[k]), want[k], err_msg=f"tiled-fused/{k}")
 
 
 def test_no_lr_check_sharded():
@@ -104,7 +70,7 @@ def test_no_lr_check_sharded():
     lefts = parallel.pad_batch([p[0] for p in pairs], cfg, H, W, mesh)
     rights = parallel.pad_batch([p[1] for p in pairs], cfg, H, W, mesh)
     got = parallel.match_batch_sharded(lefts, rights, cfg, H, W, mesh,
-                                       "tiled", "jnp")
+                                       "tiled")
     want = unsharded_reference(pairs, cfg)
     for k in want:
         np.testing.assert_array_equal(np.asarray(got[k]), want[k])
@@ -120,7 +86,7 @@ def test_quality_on_sharded_run():
     lefts = parallel.pad_batch([left] * 2, cfg, H, W, mesh)
     rights = parallel.pad_batch([right] * 2, cfg, H, W, mesh)
     got = parallel.match_batch_sharded(lefts, rights, cfg, H, W, mesh,
-                                       "tiled", "jnp")
+                                       "tiled")
     from deepmatching_stereo_matching_tpu.utils import metrics
     rate = metrics.bad_pixel_rate(np.asarray(got["disparity"][0]), gt,
                                   count_invalid=False)
@@ -129,51 +95,28 @@ def test_quality_on_sharded_run():
     assert rate < 0.15
 
 
-def test_dslab_pallas_costvol_matches_unsharded():
-    """dslab with Pallas slab cost volumes (interpret mode on CPU) ==
-    the unsharded pipeline bitwise (VERDICT r3 item 5)."""
-    cfg = Config(max_disparity=D)
-    mesh = parallel.make_mesh(2, 2)
-    pairs = make_batch(4, seed=31)
+@pytest.mark.parametrize("strategy,n_data,n_model,max_d,levels,seed", [
+    ("tiled", 2, 4, D, None, 3),
+    ("dslab", 2, 2, D, None, 31),
+    # 8 bins over 4 slabs: each slab (2 bins) is narrower than a patch.
+    ("dslab", 1, 4, 8, 1, 41),
+])
+def test_sharded_mesh_shapes_match_unsharded(strategy, n_data, n_model,
+                                             max_d, levels, seed):
+    """Other mesh shapes and slab widths == the unsharded pipeline,
+    bitwise, on every output."""
+    cfg = Config(max_disparity=max_d, levels=levels)
+    mesh = parallel.make_mesh(n_data, n_model)
+    pairs = make_batch(2 * n_data, seed=seed)
     lefts = parallel.pad_batch([p[0] for p in pairs], cfg, H, W, mesh,
-                               "dslab")
+                               strategy)
     rights = parallel.pad_batch([p[1] for p in pairs], cfg, H, W, mesh,
-                                "dslab")
-    sharding = parallel.input_sharding(mesh, "dslab")
+                                strategy)
+    sharding = parallel.input_sharding(mesh, strategy)
     got = parallel.match_batch_sharded(
         jax.device_put(lefts, sharding), jax.device_put(rights, sharding),
-        cfg, H, W, mesh, "dslab", "pallas")
-    want = unsharded_reference(pairs, cfg)
-    for k in want:
-        if k == "score":
-            # Decisions are the bitwise contract; the Pallas cost
-            # kernel's sublane reduce rounds scores differently at the
-            # last ulp than the jnp einsum (same contract as bench.py's
-            # sharded smoke).
-            np.testing.assert_allclose(np.asarray(got[k]), want[k],
-                                       rtol=1e-6, atol=1e-6)
-        else:
-            np.testing.assert_array_equal(np.asarray(got[k]), want[k],
-                                          err_msg=f"dslab-pallas/{k}")
-
-
-def test_dslab_pallas_unaligned_slab_falls_back():
-    """Slabs smaller than the patch size cannot use the Pallas slab
-    kernel (its whole-patch-column d_offset shift would truncate);
-    slab_cost_volume must take the jnp path and stay bitwise-correct
-    (code-review r4 finding)."""
-    cfg = Config(max_disparity=8, levels=1)
-    mesh = parallel.make_mesh(1, 4)   # d_local = 8/4 = 2 < patch 4
-    pairs = make_batch(2, seed=41)
-    lefts = parallel.pad_batch([p[0] for p in pairs], cfg, H, W, mesh,
-                               "dslab")
-    rights = parallel.pad_batch([p[1] for p in pairs], cfg, H, W, mesh,
-                                "dslab")
-    sharding = parallel.input_sharding(mesh, "dslab")
-    got = parallel.match_batch_sharded(
-        jax.device_put(lefts, sharding), jax.device_put(rights, sharding),
-        cfg, H, W, mesh, "dslab", "pallas")
+        cfg, H, W, mesh, strategy)
     want = unsharded_reference(pairs, cfg)
     for k in want:
         np.testing.assert_array_equal(np.asarray(got[k]), want[k],
-                                      err_msg=f"unaligned-slab/{k}")
+                                      err_msg=f"{strategy}/{k}")

@@ -4,7 +4,7 @@ The halo-exchange spatial strategy (parallel/wtiled.py) must reproduce
 the single-device pipeline exactly on the 8-device virtual CPU mesh:
 ppermute halos, the mirror-flip, the coarse-level all_gather merge, and
 the cross-tile LR gather all preserve bit-identity (SURVEY.md §7 hard
-parts 2/3; VERDICT.md round-1 item 1).
+parts 2/3).
 """
 
 import jax
@@ -47,12 +47,12 @@ def unsharded_reference(pairs, cfg, hp, wp):
         g = oracle.to_grayscale_f32(right)
         rp = np.zeros((hp, wp), np.float32)
         rp[: g.shape[0], : g.shape[1]] = g
-        outs.append(pipeline.match_padded(lp, rp, cfg, H, W, "jnp"))
+        outs.append(pipeline.match_padded(lp, rp, cfg, H, W))
     return {k: np.stack([np.asarray(o[k]) for o in outs])
             for k in outs[0]}
 
 
-def run_wtiled(pairs, cfg, mesh, merge_level=None, impl="jnp"):
+def run_wtiled(pairs, cfg, mesh, merge_level=None):
     lefts = parallel.pad_batch([p[0] for p in pairs], cfg, H, W, mesh,
                                "wtiled", merge_level)
     rights = parallel.pad_batch([p[1] for p in pairs], cfg, H, W, mesh,
@@ -61,7 +61,7 @@ def run_wtiled(pairs, cfg, mesh, merge_level=None, impl="jnp"):
     lefts = jax.device_put(lefts, sharding)
     rights = jax.device_put(rights, sharding)
     got = parallel.match_batch_sharded(lefts, rights, cfg, H, W, mesh,
-                                       "wtiled", impl, merge_level)
+                                       "wtiled", merge_level)
     return got, lefts.shape[1], lefts.shape[2]
 
 

@@ -1,16 +1,16 @@
 """Multi-host (M5) validation via 2 simulated hosts (SURVEY.md §7 M5).
 
-The reference is a single-process CPU script; the TPU replacement's
+The reference is a single-process CPU script; this framework's
 multi-host story (BASELINE.json:11 "multi-host batched stereo stream")
-must be executable in this single-machine environment.  This tool
-simulates a 2-host slice with 2 OS processes, each owning 4 virtual CPU
-devices, joined through `jax.distributed.initialize` (localhost
-coordinator; cross-process collectives ride Gloo — the CPU stand-in for
-DCN, same `Mesh`-shaped program as a real v5e pod).
+must be executable on one machine.  This tool simulates 2 hosts with 2
+OS processes, each owning 4 virtual CPU devices (the CPU is forced, so
+no process ever opens an accelerator), joined through
+`jax.distributed.initialize` (localhost coordinator; cross-process
+collectives ride Gloo, same `Mesh`-shaped program as on real hosts).
 
 Modes:
-  parent (default)      orchestrates the runs below and writes
-                        MULTIHOST_SIM.json at the repo root.
+  parent (default)      orchestrates the runs below and writes the
+                        report JSON to --out.
   --worker              one simulated host: initialise distributed
                         (unless --num-processes 1), build the GLOBAL
                         ("data", "model") mesh spanning both hosts, run
@@ -28,10 +28,10 @@ What the artifact certifies:
     and both report identical SHA-256 digests, which also equal the
     single-device pipeline's digest (bit-equality under multi-host
     sharding, BASELINE.json:5).
-  * 1-host vs 2-host scaling rows (CPU-simulated; ICI/DCN-free timing,
-    so indicative of mechanism, not of v5e efficiency).
+  * 1-host vs 2-host scaling rows (CPU-simulated timing, so indicative
+    of mechanism, not of any accelerator's efficiency).
 
-Usage: python tools/multihost_sim.py [--pairs 8] [--out MULTIHOST_SIM.json]
+Usage: python tools/multihost_sim.py [--pairs 8] [--out REPORT.json]
 """
 
 from __future__ import annotations
@@ -114,10 +114,10 @@ def worker(args) -> None:
         # Warm-up stream (compiles the sharded step) so the reported
         # Mpx/s is steady-state, as in runner.scaling_sweep.
         runner.run_stream(pairs[:batch_size], cfg, h, w, mesh, strategy,
-                          batch_size, impl="jnp")
+                          batch_size)
         collected = {}
         rep = runner.run_stream(
-            pairs, cfg, h, w, mesh, strategy, batch_size, impl="jnp",
+            pairs, cfg, h, w, mesh, strategy, batch_size,
             on_result=lambda i, out: collected.update({i: out}),
             logger=JsonlLogger(args.log) if args.log else None)
         # Bitwise parity with the single-device pipeline on the same
@@ -130,8 +130,7 @@ def worker(args) -> None:
                                     mesh, strategy)
         want = []
         for i in range(0, args.pairs, batch_size):
-            outs = [pipeline.match_padded(lefts[j], rights[j], cfg, h, w,
-                                          "jnp")
+            outs = [pipeline.match_padded(lefts[j], rights[j], cfg, h, w)
                     for j in range(i, i + batch_size)]
             for k in sorted(outs[0]):
                 want.append(np.stack([np.asarray(o[k]) for o in outs]))
@@ -266,8 +265,7 @@ def main() -> None:
     ap.add_argument("--report", default="multihost_report.json")
     ap.add_argument("--log", default=None)
     ap.add_argument("--timeout", type=float, default=480.0)
-    ap.add_argument("--out", default=os.path.join(REPO,
-                                                  "MULTIHOST_SIM.json"))
+    ap.add_argument("--out", default="multihost_sim.json")
     args = ap.parse_args()
     if args.worker:
         worker(args)
